@@ -1,8 +1,8 @@
-"""libgdf_tpu — a TPU-native vectorized query-execution engine.
+"""libgdf_tpu — a vectorized query-execution engine written in JAX.
 
 A from-scratch re-design (NOT a port) of the GPU DataFrame library
-gpuopenanalytics/libgdf for TPU hardware: Arrow-layout columnar tables as
-JAX pytrees, operators as fused XLA/Pallas programs, and a distributed
+gpuopenanalytics/libgdf: Arrow-layout columnar tables as JAX pytrees,
+operators as fused XLA programs, and a distributed
 shuffle layer over `jax.sharding.Mesh` that the single-GPU reference never
 had.
 

@@ -4,8 +4,7 @@ The reference stores validity as a packed bitmask, 1 bit per row, LSB-first
 within each byte (libgdf/include/gdf/utils.h:10-23 `gdf_is_valid`,
 GDF_VALID_BITSIZE=8 include/gdf/gdf.h:10, src/util/bit_util.cuh).
 
-On TPU the engine keeps validity as an unpacked bool vector (`valid[i]`),
-which is what the VPU wants: masks fuse directly into elementwise ops and
+The engine keeps validity as an unpacked bool vector (`valid[i]`): masks fuse directly into elementwise ops and
 reductions with zero unpack cost. The packed form is an *interchange* format
 only (Arrow IPC in/out, compat ABI), so pack/unpack live here at the
 boundary. Both are pure XLA (bit-twiddling on uint8 lanes, no gathers).
@@ -57,7 +56,7 @@ def count_valid(valid: jnp.ndarray | None, nrows: int) -> jnp.ndarray:
 
     ≅ gdf_count_nonzero_mask (src/validops.cu:84-196) — the reference does
     u32 __popc + block reduce; here the mask is already unpacked so it is a
-    single fused sum on the VPU."""
+    single fused sum."""
     if valid is None:
         return jnp.asarray(nrows, dtype=jnp.int32)
     return jnp.sum(valid, dtype=jnp.int32)

@@ -1,12 +1,7 @@
-"""Raw-bit views of columns, TPU-safe.
+"""Raw-bit views of columns, from arithmetic alone.
 
-XLA on TPU emulates 64-bit element types (the X64-rewrite pass splits them
-into 32-bit pairs), but that pass does NOT implement `bitcast-convert` on
-64-bit types — `jax.lax.bitcast_convert_type(f64, u64)` fails to compile
-for a TPU target. 64-bit *arithmetic* (add/mul/shift/convert/compare) is
-implemented and exact.
-
-This module therefore produces the IEEE-754 / two's-complement bit pattern
+The engine's first backend could not compile a 64-bit `bitcast-convert`,
+so this module produces the IEEE-754 / two's-complement bit pattern
 of any fixed-width column using only arithmetic:
 
   - integers 64-bit: `astype(uint64)` (XLA integer convert is modular
@@ -36,9 +31,9 @@ _EXP_STEPS = (512, 256, 128, 64, 32, 16, 8, 4, 2, 1)
 def f64_ieee_bits(x: jax.Array) -> jax.Array:
     """IEEE-754 bit pattern of a float64 array as uint64, arithmetic-only.
 
-    Canonicalizations (all hash/sort-order benign, and matching TPU
+    Canonicalizations (all hash/sort-order benign, and matching XLA's
     flush-to-zero float semantics — XLA flushes denormal operands in
-    arithmetic on both CPU and TPU, so their bits are unrecoverable here):
+    arithmetic, so their bits are unrecoverable here):
       -0.0 and denormals -> ±0.0's bits; NaN -> canonical quiet NaN
     (0x7FF8000000000000). Normals and ±inf are bit-exact."""
     assert x.dtype == jnp.float64, x.dtype
@@ -80,7 +75,7 @@ def f64_ieee_bits(x: jax.Array) -> jax.Array:
 
 def to_unsigned_bits(data: jax.Array) -> jax.Array:
     """Bit pattern of any fixed-width numeric column as the same-width
-    unsigned integer dtype, avoiding 64-bit bitcasts (TPU-safe)."""
+    unsigned integer dtype, avoiding 64-bit bitcasts."""
     dt = data.dtype
     if dt == jnp.float64:
         return f64_ieee_bits(data)
@@ -126,7 +121,7 @@ def f64_from_ieee_bits(bits: jax.Array) -> jax.Array:
 
 def from_unsigned_bits(u: jax.Array, dtype) -> jax.Array:
     """Inverse of to_unsigned_bits: reinterpret the unsigned bit pattern
-    as `dtype`, avoiding 64-bit bitcasts (TPU-safe)."""
+    as `dtype`, avoiding 64-bit bitcasts."""
     dtype = jnp.dtype(dtype)
     if dtype == jnp.float64:
         return f64_from_ieee_bits(u)

@@ -1,7 +1,7 @@
 """Column: the engine's fundamental value type.
 
 ≅ reference `gdf_column` (libgdf/include/gdf/cffi/types.h:84-92): data
-pointer + validity bitmask + size + dtype + null_count + name. The TPU
+pointer + validity bitmask + size + dtype + null_count + name. The
 re-design is an **immutable JAX pytree**:
 
   - `data`  — a device array, shape (nrows,)
@@ -11,7 +11,7 @@ re-design is an **immutable JAX pytree**:
 
 Differences from the reference, and why:
   - validity is an unpacked bool vector, not a packed bitmask: masks fuse
-    into VPU elementwise ops for free; packing is interchange-only
+    into elementwise ops for free; packing is interchange-only
     (core/bitmask.py).
   - null_count is not cached: it is one fused reduction when needed, and a
     cached traced scalar would make every op carry a host-sync hazard.

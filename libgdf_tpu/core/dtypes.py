@@ -1,6 +1,6 @@
-"""Column type system for the TPU-native GDF engine.
+"""Column type system for the GDF engine.
 
-TPU-first re-design of the reference's dtype enum and dtype metadata
+JAX-first re-design of the reference's dtype enum and dtype metadata
 (reference: libgdf/include/gdf/cffi/types.h:15-29 `gdf_dtype`,
 types.h:71-82 `gdf_time_unit`/`gdf_dtype_extra_info`).
 

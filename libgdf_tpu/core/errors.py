@@ -4,7 +4,7 @@
 `gdf_error_get_name` (src/errorhandling.cpp:5-34) and the Python-side
 `GDFError` translation (python/libgdf_cffi/wrapper.py:7-52).
 
-The TPU engine raises exceptions instead of returning codes — but the code
+The engine raises exceptions instead of returning codes — but the code
 enum is preserved so the compat layer (libgdf_tpu.compat) can expose the
 exact reference surface.
 """
@@ -17,7 +17,7 @@ class GDFStatus(enum.IntEnum):
     """Mirrors types.h:39-64 (values and names)."""
 
     GDF_SUCCESS = 0
-    GDF_CUDA_ERROR = 1               # kept for ABI parity; unused on TPU
+    GDF_CUDA_ERROR = 1               # kept for ABI parity; unused
     GDF_UNSUPPORTED_DTYPE = 2
     GDF_COLUMN_SIZE_MISMATCH = 3
     GDF_COLUMN_SIZE_TOO_BIG = 4

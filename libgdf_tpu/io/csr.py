@@ -5,7 +5,7 @@ csr_gdf convert_types.h:31-39): row-major walk over the table's cells,
 emitting every VALID field into A (values), JA (column index) with IA the
 per-row exclusive offsets (size rows+1).
 
-TPU design: the reference uses a valid-count scan + fill kernels with
+Design: the reference uses a valid-count scan + fill kernels with
 atomics; here it is one transpose + mask + cumsum + gather — all fused
 XLA, no atomics.
 """

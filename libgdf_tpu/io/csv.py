@@ -5,7 +5,7 @@ include/gdf/cffi/io_types.h:26-58): mmap + device byte-scan kernels
 (countRecords/storeRecordStart/convertCsvToGdf) producing typed columns
 with a validity bit per parsed field.
 
-TPU design: byte-wise CSV scanning is host-bound I/O, not an MXU/VPU
+Design: byte-wise CSV scanning is host-bound I/O, not a device
 workload — the reference's GPU-side parse is a CUDA-era trick (data had to
 cross PCIe anyway). Here the scan runs on the host: the native C++ parser
 (native/csvparse.cpp, built as libgdf_native.so) when available, else a

@@ -6,9 +6,9 @@ layout JSON (data/validity buffer offsets into the blob) so the binding
 can view columns zero-copy (:167-200), with Arrow 0.7/0.8 version guards
 (:260-290).
 
-TPU design: the reference parses the flatbuffer header ON DEVICE
+Design: the reference parses the flatbuffer header ON DEVICE
 (cudaMemcpy of header bytes back, ipc.cu:397-424) because its payload
-already lived in GPU memory. On TPU the payload arrives via host DMA
+already lived in GPU memory. Here the payload arrives via a host copy
 anyway, so the parse is host-side pyarrow; columns land on device as one
 transfer each. The JSON surfaces (schema/layout/data offset) are kept
 API-compatible.

@@ -5,7 +5,7 @@ python/librmm_cffi/wrapper.py): pool-or-direct allocation with a CSV
 event log of every alloc/realloc/free (RAII `LogIt`, memory.cpp:55-110;
 rmmWriteLog/rmmGetLog memory.h:160-184; asserted by test_rmm.py:34-45).
 
-TPU design: XLA owns physical HBM allocation — re-implementing a cnmem
+Design: XLA owns physical device-memory allocation — re-implementing a cnmem
 pool under XLA would fight the compiler's arena planner. What the RMM
 subsystem actually *provides users* is (a) an allocation API that hands
 out device buffers and (b) telemetry. Both are kept:
@@ -257,8 +257,8 @@ def csv_log() -> str:
 
 def device_array_from_handle(handle: int, nelem: int):
     """≅ device_array_from_ptr (wrapper.py:106-124): typed slice of an
-    allocation (dtype fixed at rmmAlloc time — no pointer punning on
-    TPU)."""
+    allocation (dtype fixed at rmmAlloc time — no pointer punning
+    here)."""
     return rmmGetArray(handle)[:nelem]
 
 

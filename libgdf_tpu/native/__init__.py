@@ -21,14 +21,22 @@ _lib = None
 
 
 def _try_build() -> None:
+    """Build the library from native/ into a name of this process's own,
+    then rename it into place: the rename is atomic, so parallel
+    processes (test workers) never load a half-written file."""
     src = os.path.join(_NATIVE_DIR, "csvparse.cpp")
     if not os.path.exists(src):
         return
+    tmp = f"libgdf_native.so.{os.getpid()}.tmp"
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=120)
-    except Exception:  # noqa: BLE001 — fall back to pure Python
-        pass
+        subprocess.run(["make", "-C", _NATIVE_DIR, f"LIB={tmp}"],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(os.path.join(_NATIVE_DIR, tmp), _LIB_PATH)
+    except (OSError, subprocess.SubprocessError):
+        pass  # no toolchain: every consumer has a pure-Python fallback
+    finally:
+        if os.path.exists(os.path.join(_NATIVE_DIR, tmp)):
+            os.remove(os.path.join(_NATIVE_DIR, tmp))
 
 
 def _load():

@@ -5,13 +5,13 @@
     stencil != 0 AND the stencil's own validity bit is set;
   - gpu_concat (:389-503): concatenation incl. bit-level mask stitching.
 
-TPU design: no atomics, no copy_if. Kept rows sort to the front (stable)
-with ONE fused multi-payload sort on a 1-byte key (`drop_flag`): every
-column's data and validity ride through the sort as payload operands —
-measured 4-10x cheaper than sorting indices and gathering (see
-ops/engine.py cost model). The survivor count is a fused popcount. Output
-keeps the static capacity; `num_rows` carries the live count
-(capacity+count pattern — see core/table.py).
+Design: the thrust::copy_if shape — a prefix sum of the keep mask gives
+each survivor its slot, and one scatter per column moves it there
+(compact_arrays). On the H100 this runs about 10x faster than a fused
+payload sort on a 1-byte drop key (PERF.md).
+The survivor count is a fused popcount. Output keeps the static
+capacity; `num_rows` carries the live count (capacity+count pattern —
+see core/table.py).
 """
 from __future__ import annotations
 
@@ -21,27 +21,11 @@ import jax.numpy as jnp
 from ..core.column import Column
 from ..core.errors import GDFStatus, require
 from ..core.table import Table
-from . import engine
-from .engine import multi_sort
-
-
-def compaction_indices(keep: jax.Array):
-    """Return (src_indices: int32[n] — kept-row indices first, stable;
-    count: int32 scalar).
-
-    The j-th output row (j < count) comes from src_indices[j]."""
-    n = keep.shape[0]
-    iota = jnp.arange(n, dtype=jnp.int32)
-    drop = jnp.logical_not(keep).astype(jnp.uint8)
-    _, perm = jax.lax.sort((drop, iota), num_keys=1, is_stable=True)
-    count = jnp.sum(keep, dtype=jnp.int32)
-    return perm, count
 
 
 def compact_table(table: Table, keep: jax.Array):
     """Move rows where `keep` to the front (stable). Returns (Table with
-    original capacity, count). TPU: Pallas routing kernel
-    (ops/pallas/compact.py); fallback: ONE fused payload sort."""
+    original capacity, count)."""
     arrays, layout = [], []
     for c in table.columns:
         arrays.append(c.data)
@@ -60,40 +44,28 @@ def compact_table(table: Table, keep: jax.Array):
     return Table(columns=tuple(cols), names=table.names), count
 
 
-# Above this row count the v1 Pallas routing kernel's compile+runtime
-# scale super-linearly with the grid (measured v5e: 59 us/block at 1M rows
-# but 1.2 ms/block + 1022 s compile at 11M) — v1 falls back to the fused
-# payload sort past it. The v2 kernel (pallas/compact2.py: offset-
-# prefetched block pipeline) has no such cliff and is the default.
-# Override via engine.configure(pallas_compact_max_rows=...).
-PALLAS_COMPACT_MAX_ROWS = 2_097_152
-
-
 def compact_arrays(arrays, keep: jax.Array):
     """Stable stream compaction of raw arrays: returns (compacted arrays,
-    count). Backend-selected (engine.configure): Pallas kernel on TPU
-    (~100x the sort path), fused 1-key payload sort elsewhere.
+    count). Rows past the count are zero.
 
-    auto (default): v1 routing kernel within its measured sweet spot
-    (7.4 vs 5.2 Grows/s end-to-end at 1M — no merge stage), v2
-    offset-prefetched kernel above it (flat per-block cost; v1 goes
-    super-linear past ~2M rows)."""
-    arrays = list(arrays)
-    if engine.use_pallas() or engine.pallas_interpret():
-        from .pallas import compact_pallas, compact_pallas_supported
-        from .pallas.compact2 import compact_pallas2
-        if compact_pallas_supported(arrays):
-            backend = engine.compact_backend()
-            small = keep.shape[0] <= engine.pallas_compact_max_rows()
-            if backend == "v2" or (backend == "auto" and not small):
-                return compact_pallas2(arrays, keep,
-                                       interpret=engine.pallas_interpret())
-            if small:
-                return compact_pallas(arrays, keep,
-                                      interpret=engine.pallas_interpret())
-    drop = jnp.logical_not(keep).astype(jnp.uint8)
-    res = multi_sort([drop] + arrays, num_keys=1)
-    return list(res[1:]), jnp.sum(keep, dtype=jnp.int32)
+    A prefix sum of `keep` gives each kept row its output slot; one
+    scatter per array writes it there. Dropped rows get distinct slots
+    past the end, which the scatter drops, so every index is unique."""
+    n = keep.shape[0]
+    pos = jnp.cumsum(keep, dtype=jnp.int32) - 1
+    iota = jnp.arange(n, dtype=jnp.int32)
+    dst = jnp.where(keep, pos, n + (iota - pos - 1))
+    out = [jnp.zeros_like(a).at[dst].set(a, mode="drop", unique_indices=True)
+           for a in arrays]
+    return out, jnp.sum(keep, dtype=jnp.int32)
+
+
+def compaction_indices(keep: jax.Array):
+    """Return (src_indices: int32[n], count): the j-th output row
+    (j < count) comes from src_indices[j]; kept rows keep their order."""
+    iota = jnp.arange(keep.shape[0], dtype=jnp.int32)
+    (perm,), count = compact_arrays([iota], keep)
+    return perm, count
 
 
 def stencil_keep_mask(stencil: Column) -> jax.Array:

@@ -9,7 +9,7 @@
   - column-vs-scalar / column-vs-column comparisons producing int8 stencils:
     libgdf/src/filterops.cu (:17-95, 162-260)
 
-TPU design: each op is a whole-column fused VPU expression. The reference
+Design: each op is a whole-column fused expression. The reference
 launches one grid-stride kernel per op and *skips* invalid lanes
 (unaryops.cu:18-43); we compute all lanes (branch-free, vector-friendly) and
 carry the validity mask alongside — dead-lane results are never observed.

@@ -12,7 +12,7 @@
     count} (src/sqls_ops.cu:1426-1487);
   - COUNT DISTINCT collapses to a scalar (sqls_rtti_comp.hpp:400-441).
 
-TPU design: the CAS-aggregation hash map has no TPU analogue (no global
+Design: the reference's CAS-aggregation hash map is not used (no
 atomics), and the sort path is the naturally vector-friendly formulation —
 so there is ONE implementation, sort-based, built on the ops/engine.py
 cost model (sorts carry payloads; gathers and scatter-adds are banned):
@@ -163,8 +163,8 @@ def _groupby_impl(table: Table, key_names: Sequence[str],
     # supported aggregate (sum/min/max/count/avg) is order-insensitive
     # modulo fp-sum rounding order — which the reference never fixed
     # either (atomicAdd aggregation, groupby_kernels.cuh:42-108, is
-    # schedule-ordered). Unstable u64 sorts measure ~2.3x faster on v5e
-    # and the sort is ~100% of groupby's steady-state time.
+    # schedule-ordered). An unstable sort lets the row order ride in no
+    # extra operand.
     res = _fused_groupby_sort(operands, nk, fields)
 
     s_words = list(res[:nk])
@@ -291,7 +291,7 @@ def _p0_from_u64(w, dtype):
 def _fused_groupby_sort(operands, nk, fields):
     """The groupby sort, folding the first payload into the key word.
 
-    Sort-operand count dominates lax.sort cost on the VPU (PERF.md).
+    Fewer sort operands make a cheaper lax.sort.
     Two folds turn the dominant 2-operand sort into a 1-operand sort
     (unstable u64 1-op measures ~1.4x the 2-op at 11M):
 
@@ -365,11 +365,8 @@ def _scan_agg(vals, avalid, starts, op, group_live, out_name):
 
     if op == "avg":
         # ≅ multi_pass_avg (groupby.cuh:308-419): sum + count, divide.
-        # f64 accumulation for every input dtype: the engine's f64 sum
-        # scan is a compensated double-float Pallas kernel on TPU
-        # (~2^-47 relative, deterministic — pallas/scan.py), so this no
-        # longer trades precision for the Mosaic path (round-4 advisor
-        # finding: f32 running sums lost digits on large groups).
+        # f64 accumulation for every input dtype: f32 running sums
+        # lose digits on large groups.
         fvals = vals.astype(jnp.float64)
         if avalid is not None:
             fvals = jnp.where(avalid, fvals, 0.0)

@@ -16,12 +16,12 @@ reference exactly, so distributed shuffles land rows on the same shard a
 libgdf-based system would. Verified against MurmurHash3 reference vectors
 in tests/test_hashing.py.
 
-TPU design: the hash is whole-column uint32 vector arithmetic (multiply/
-rotate/xor on the VPU — murmur3's block loop unrolls completely because
+Design: the hash is whole-column uint32 vector arithmetic (multiply/
+rotate/xor — murmur3's block loop unrolls completely because
 column widths are static). Partitioning replaces the reference's
 shared-memory histogram + atomic-offset scatter (hashing.cu:259-377) with
 ONE stable sort by partition id + a vectorized offsets searchsorted: the
-canonical no-atomics TPU formulation. Within-partition order is therefore
+canonical no-atomics formulation. Within-partition order is therefore
 stable (original row order) — a determinism upgrade over the reference's
 atomic ordering, which its own tests don't rely on
 (tests/hashing/hash-partition-test.cu:166-252 only check membership).
@@ -81,7 +81,7 @@ def murmur3_32(data: jax.Array, seed: int = 0) -> jax.Array:
     little-endian byte order, bit-exact with hash_functions.cuh:80-118."""
     width = data.dtype.itemsize
     h1 = jnp.full(data.shape, seed, jnp.uint32)
-    u = to_unsigned_bits(data)  # TPU-safe (no 64-bit bitcast), core/bits.py
+    u = to_unsigned_bits(data)  # no 64-bit bitcast, core/bits.py
     if width == 8:
         lo, hi = u64_words(u)
         h1 = _body_block(_body_block(h1, lo), hi)
@@ -220,7 +220,7 @@ def partition_sizes(part_ids: jax.Array, num_partitions: int,
                     live_mask=None) -> jax.Array:
     """Histogram of partition ids (≅ the global histogram in
     compute_row_partition_numbers, hashing.cu:259-320). One-hot matmul
-    formulation — TPU-friendly, no atomics."""
+    formulation — no atomics."""
     oh = (part_ids[:, None] ==
           jnp.arange(num_partitions, dtype=part_ids.dtype)[None, :])
     if live_mask is not None:

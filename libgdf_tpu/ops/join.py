@@ -11,11 +11,9 @@
   - FULL = LEFT + append_full_join_indices (join_compute_api.h:54-186);
   - result materialization construct_join_output_df (joining.cu:375-479).
 
-TPU design — sort + vectorized binary search (the reference's own SORT path
-generalized, replacing its HASH path entirely):
-
-  A multimap with atomicCAS probing is the wrong shape for a VPU (8x128
-  lanes hate pointer-chasing). Instead:
+Design — sort + vectorized binary search (the reference's own SORT path
+generalized, replacing its HASH path entirely). Instead of a multimap with
+atomicCAS probing:
     1. the build side is sorted once by its (normalized) key columns;
     2. one **vectorized lexicographic binary search** finds, for every probe
        row simultaneously, the [lower, upper) range of matching build rows —
@@ -99,8 +97,8 @@ def mask_or(a, b):
 def lex_searchsorted(sorted_keys, query_keys, side: str) -> jax.Array:
     """For each query row, the insertion point into the lexicographically
     sorted multi-key arrays. All queries advance in lockstep: log2(n)
-    rounds, each one gather + compare per key column (VPU-friendly — the
-    TPU analogue of mgpu sorted_search, sort-join.cuh:48-66).
+    rounds, each one gather + compare per key column (the analogue of
+    mgpu sorted_search, sort-join.cuh:48-66).
 
     Engine consumers: window RANGE frames (ops/window.py) locate each
     row's value-bounded frame start with one lex search over the
@@ -173,10 +171,7 @@ def join_indices(left: Table, right: Table, left_on: Sequence[str],
     instead of the reference's second probe pass) and output offsets —
     so the only position-indexed ops are ONE scatter (slot → sorted
     position, the analogue of the probe kernel's atomicAdd output index,
-    join_kernels.cuh:259-455) and two row-gathers. TPU cost model: sorts
-    and scans are fast; element scatters/gathers are the expensive ops
-    and are minimized, with multi-payload gathers fused into one 2-wide
-    row gather."""
+    join_kernels.cuh:259-455) and two row-gathers."""
     require(how in ("inner", "left", "full"),
             GDFStatus.GDF_UNSUPPORTED_JOIN_TYPE, how)
     from ..utils.metrics import op_metrics, table_bytes
@@ -272,58 +267,29 @@ def _join_indices_impl(left, right, left_on, right_on, how, out_capacity,
 
     def general_path(_):
         # Many-to-many expansion: scatter each emitting position's data
-        # at its output offset, carry-fill forward (Pallas pair scans),
-        # rank = slot - base. TWO scatter words over the L sources:
+        # at its output offset, carry-fill forward, rank = slot - base.
+        # Two scatter words over the L sources:
         #   w1 = (s_back+1) << 2 | flags   (s_back < 2^28 = _PACK_MAX)
         #   w2 = run_lower + 1
-        # Scatters are the dominant cost of this path after the sort
-        # (measured v5e: 120 ms per 11M->40M i32 scatter vs 1.6-3 ms for
-        # the 40M Pallas fills; the round-4 formulation's two 40M-row
-        # GATHERS cost 300 ms each) — so everything per-slot derives
-        # from as few scattered words as possible.
-        # i32 words when row ids fit 28 bits (native scatters / Pallas
-        # expand); the int64 flavor keeps giant shards correct (no 2^28/
-        # 2^31 output ceiling — the reference's int32 cap, joining.cu:
-        # 32-35 — at the cost of XLA-lowered scatter+fills). Static.
+        # Offsets at or past cap (or wrapped negative past 2^31 on a
+        # >2^31-row overflow) are dropped slots; the count stays exact.
+        # i32 words when row ids fit 28 bits; the int64 flavor keeps
+        # giant shards correct (no 2^28/2^31 output ceiling — the
+        # reference's int32 cap, joining.cu:32-35). Static.
         wdt = (jnp.int32 if max(n, m, 1) < _PACK_MAX else jnp.int64)
         j = jnp.arange(cap, dtype=jnp.int32)
-        from .pallas.expand import SENTINEL, expand_fill_pallas
-        if (wdt == jnp.int32 and cap < int(SENTINEL)
-                and (engine.use_pallas() or engine.pallas_interpret())):
-            # Pallas monotone expand-fill: compact the emitting sources
-            # to a dense (pos, words) list (compact2, ~3 ms at 11M),
-            # then ONE kernel pass over the output produces the filled
-            # w1 / run_lower / base words — replacing two XLA scatters
-            # (measured 120 ms each per 11M->40M word on v5e) + fills.
-            from .compaction import compact_arrays
-            w1s = ((s_back + 1) << 2) | flag_bits
-            # offsets at/past cap (or wrapped negative past 2^31 on a
-            # >2^31-row overflow) clamp to SENTINEL BEFORE compaction:
-            # they are dropped slots either way, and un-clamped they
-            # would break the kernel's sorted-positions contract and
-            # corrupt the in-capacity prefix the XLA path preserves
-            # (round-5 review)
-            off_ok = jnp.logical_and(offsets >= 0, offsets < cap)
-            pos_src = jnp.where(off_ok, offsets, SENTINEL)
-            (pos_c, w1_c, lo_c), n_src = compact_arrays(
-                [pos_src, w1s, run_lower + 1], emit > 0)
-            pos_c = jnp.where(jnp.arange(L, dtype=jnp.int32) < n_src,
-                              pos_c, SENTINEL)
-            w1, lo_f, base = expand_fill_pallas(
-                pos_c, [w1_c, lo_c, pos_c], cap,
-                interpret=engine.pallas_interpret())
-            rank = j - base          # base=0 before the first source:
-            lo_j = lo_f - 1          # harmless, those slots emit -1/-1
-        else:
-            src = jnp.where(emit > 0, offsets, cap)  # cap = dropped OOB
-            w1s = ((s_back.astype(wdt) + 1) << 2) | flag_bits.astype(wdt)
-            w1_0 = jnp.zeros((cap,), wdt).at[src].max(w1s, mode="drop")
-            lo0 = jnp.zeros((cap,), jnp.int32).at[src].max(
-                run_lower + 1, mode="drop")
-            base = engine.cummax(jnp.where(w1_0 > 0, j, -1))
-            rank = j - base
-            w1 = last_valid_scan(w1_0 > 0, w1_0)[0]
-            lo_j = last_valid_scan(lo0 > 0, lo0)[0] - 1
+        # cap = out of bounds, dropped; so are negative (wrapped) offsets,
+        # which .at[] would otherwise count from the end.
+        src = jnp.where(jnp.logical_and(emit > 0, offsets >= 0), offsets,
+                        cap)
+        w1s = ((s_back.astype(wdt) + 1) << 2) | flag_bits.astype(wdt)
+        w1_0 = jnp.zeros((cap,), wdt).at[src].max(w1s, mode="drop")
+        lo0 = jnp.zeros((cap,), jnp.int32).at[src].max(
+            run_lower + 1, mode="drop")
+        base = engine.cummax(jnp.where(w1_0 > 0, j, -1))
+        rank = j - base
+        w1 = last_valid_scan(w1_0 > 0, w1_0)[0]
+        lo_j = last_valid_scan(lo0 > 0, lo0)[0] - 1
         from_query = (w1 & 2) != 0
         matched = (w1 & 1) != 0
         s_back_j = ((w1 >> 2) - 1).astype(jnp.int32)

@@ -8,7 +8,7 @@
   - gdf_quantile_aprrox (sic — the typo is part of the reference ABI,
     functions.h:782): value at the floor position, no interpolation.
 
-TPU design: one lax.sort of the column, then O(1) gathers — interpolation
+Design: one lax.sort of the column, then O(1) gathers — interpolation
 arithmetic is scalar. NULLs are excluded (sorted to the end via the
 encode+flag trick, then the effective n shrinks), a capability the
 reference lacks.

@@ -6,8 +6,7 @@ cub::DeviceScan::{In,Ex}clusiveSum. Like the reference, no validity support
 reference's i8/i32/i64-only surface was a template-instantiation economy,
 not a semantic choice.
 
-Lowers through engine.cumsum: a Pallas scan kernel on TPU (4-byte
-dtypes and exact 64-bit integer sums), XLA's native scan elsewhere.
+Lowers through engine.cumsum (XLA's scan; exact for 64-bit integers).
 """
 from __future__ import annotations
 

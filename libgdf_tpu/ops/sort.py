@@ -8,7 +8,7 @@
     segmented variants (src/segmented_sorting.cu:10-261);
   - gdf_table::sort (src/gdf_table.cuh:1020-1050).
 
-TPU design: the reference's per-element runtime dtype dispatch
+Design: the reference's per-element runtime dtype dispatch
 (LesserRTTI's switch per comparison) is replaced by **key normalization**:
 each key column is transformed once into a radix-comparable unsigned
 bit-string (sign-flip for ints, IEEE-754 order-fix for floats, bit-inverse
@@ -40,7 +40,7 @@ def radix_encode(data: jax.Array, ascending: bool = True) -> jax.Array:
     dt = data.dtype
     if jnp.issubdtype(dt, jnp.floating):
         nbits = dt.itemsize * 8
-        u = to_unsigned_bits(data)  # TPU-safe, core/bits.py
+        u = to_unsigned_bits(data)  # no 64-bit bitcast, core/bits.py
         sign = jnp.asarray(1, u.dtype) << (nbits - 1)
         # IEEE-754 total order: negative floats reverse, positives offset.
         enc = jnp.where((u & sign) != 0, ~u, u | sign)
@@ -97,8 +97,8 @@ def pack_bit_fields(fields, iota_bits: int = 0, n: int | None = None):
 
     This replaces the reference's one-comparator-per-column runtime
     dispatch (LesserRTTI, sqls_rtti_comp.hpp:100-118) with the minimal
-    number of fused radix words — operand count is the dominant
-    lax.sort cost on TPU."""
+    number of fused radix words — fewer operands make a cheaper
+    lax.sort."""
     total = 0
     placed = []  # (value u64, nbits, global offset)
     for v, nbits in fields:
@@ -200,8 +200,8 @@ def key_fields(table: Table, key_names: Sequence[str], ascending,
 def key_operands(table: Table, key_names: Sequence[str], ascending,
                  nulls_last: bool = True) -> list:
     """Minimal u64 sort-key operands (packed bit fields) for a
-    lexicographic table sort — operand count is the dominant lax.sort
-    cost on TPU, so all flags/encodings share words."""
+    lexicographic table sort — fewer operands make a cheaper lax.sort,
+    so all flags/encodings share words."""
     return pack_bit_fields(
         key_fields(table, key_names, ascending, nulls_last))
 
@@ -309,7 +309,7 @@ def segmented_radixsort(keys: Column, values: Column | None,
 
     ≅ gdf_segmented_radixsort_* via cub::DeviceSegmentedRadixSort
     (segmented_sorting.cu:51-160). Implemented as ONE flat sort with the
-    segment id as the leading key — the canonical TPU formulation (a
+    segment id as the leading key — the canonical formulation (a
     per-segment loop would defeat XLA's single fused sort)."""
     n = keys.size
     seg = segment_ids_from_offsets(jnp.asarray(segment_offsets, jnp.int32), n)

@@ -1,10 +1,8 @@
 """Vectorized sorted-search (match ranges) via ONE merge-by-sort.
 
 The direct analogue of mgpu::sorted_search (reference
-src/join/sort/sort-join.cuh:48-66) — but TPU gathers are slow, so the
-log(n) binary-search-with-gathers formulation loses badly to fused
-lax.sorts, and even the two-sorts formulation (one per bound side) pays
-double. This computes EVERYTHING the join needs from a single sort:
+src/join/sort/sort-join.cuh:48-66), without its log(n) rounds of
+binary-search gathers and without one sort per bound side. This computes EVERYTHING the join needs from a single sort:
 
     sort [build keys ++ probe keys] with a tiebreak flag ordering build
     rows before equal probe rows. At sorted position p:
@@ -20,8 +18,8 @@ double. This computes EVERYTHING the join needs from a single sort:
 
 Cost: one (n+m)-row multi-operand sort + a few cumsum/cummax scans +
 two scatters — all bandwidth-shaped. Replaces three sorts and a 21-round
-gather loop; ~100x faster than the gather formulation for 10M x 1M on
-TPU v5e.
+gather loop. Its speed against the gather formulation on the GPU is not
+measured.
 """
 from __future__ import annotations
 

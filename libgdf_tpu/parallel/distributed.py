@@ -206,7 +206,7 @@ def map_shards(mesh: Mesh, fn: Callable[..., Table], *sts: ShardedTable,
         _MAP_SHARDS_CACHE.move_to_end(key)
     else:
         @jax.jit
-        @partial(jax.shard_map, mesh=mesh, check_vma=False,
+        @partial(jax.shard_map, mesh=mesh,
                  in_specs=(P(axis_name),) * len(sts),
                  out_specs=P(axis_name))
         def body(*locals_):
@@ -296,7 +296,7 @@ def exact_slot_capacity(mesh: Mesh, sides, axis_name: str = DEFAULT_AXIS,
     sts = [s[0] for s in sides]
 
     @jax.jit
-    @partial(jax.shard_map, mesh=mesh, check_vma=False,
+    @partial(jax.shard_map, mesh=mesh,
              in_specs=(P(axis_name),) * len(sts), out_specs=P())
     def run(*locals_):
         caps = []
@@ -321,7 +321,7 @@ def exact_slot_capacity(mesh: Mesh, sides, axis_name: str = DEFAULT_AXIS,
 
 def _check_slot_capacity(mesh, sides, slot_capacity, axis_name):
     """Loud failure on a user-provided slot_capacity that would drop rows
-    (VERDICT r1 weak #2: the silent-overflow hazard). Skipped when called
+    (the silent-overflow hazard). Skipped when called
     under a trace (the counting pre-pass needs concrete values); jitted
     pipelines own the check via an eager exact_slot_capacity() upfront."""
     try:
@@ -346,7 +346,7 @@ def exact_groupby_slot_capacity(mesh: Mesh, st: ShardedTable,
     plan = _AggPlan(aggs)
 
     @jax.jit
-    @partial(jax.shard_map, mesh=mesh, check_vma=False,
+    @partial(jax.shard_map, mesh=mesh,
              in_specs=(P(axis_name),),
              out_specs=P())
     def sized(stl):
@@ -389,7 +389,7 @@ def dist_groupby(mesh: Mesh, st: ShardedTable, key_names: Sequence[str],
     if pre_aggregate:
         # size by post-combine counts: run the combiner in the pre-pass
         @jax.jit
-        @partial(jax.shard_map, mesh=mesh, check_vma=False,
+        @partial(jax.shard_map, mesh=mesh,
              in_specs=(P(axis_name),),
                  out_specs=P())
         def sized(stl):
@@ -501,7 +501,7 @@ def _flag_count_overflow(out: ShardedTable, cap: int) -> ShardedTable:
 def _check_join_counts(out: ShardedTable, cap: int):
     """Eager output-capacity check: join counts are always exact (the
     count pass never truncates), so count > capacity is detectable. Raise
-    rather than let collect() slice garbage (VERDICT r1 weak #3)."""
+    rather than let collect() slice garbage."""
     try:
         counts = np.asarray(out.counts)
     except Exception:  # traced (inside jit) — caller owns the check
@@ -626,7 +626,7 @@ def plan_salted_join(mesh: Mesh, left: ShardedTable, right: ShardedTable,
     from .shuffle import dest_sizes
 
     @jax.jit
-    @partial(jax.shard_map, mesh=mesh, check_vma=False,
+    @partial(jax.shard_map, mesh=mesh,
              in_specs=(P(axis_name), P(axis_name)), out_specs=(P(), P()))
     def sizing(lst, rst):
         lt = lst.table.with_num_rows(lst.counts[0])
@@ -798,7 +798,7 @@ def detect_skew(mesh: Mesh, st: ShardedTable, key_names,
     nbins = num_bins or int(mesh.devices.size)
 
     @jax.jit
-    @partial(jax.shard_map, mesh=mesh, check_vma=False,
+    @partial(jax.shard_map, mesh=mesh,
              in_specs=P(axis_name),
              out_specs=P())
     def run(stl: ShardedTable):

@@ -7,8 +7,10 @@ external driver to ship. This package supplies the missing distributed
 runtime natively: a 1-D `jax.sharding.Mesh` of row shards, row-sharded
 tables, and collective shuffles (parallel/shuffle.py).
 
-Works identically over ICI within a slice and DCN across slices — both are
-behind jax.lax collectives.
+The mesh is 1-D because it follows the algorithm, not the wiring: a hash
+shuffle sends from every shard to every other, and NVLink joins the cards
+of a host all to all. Across hosts the same jax.lax collectives run over
+the network.
 """
 from __future__ import annotations
 

@@ -8,8 +8,8 @@ partitions). This module completes the design natively:
     per-shard hash partition (ops/hashing.py — bit-exact Murmur3, so rows
     land on the same shard a libgdf-based system would choose)
         → pad partitions into fixed-size slots
-        → ONE jax.lax.all_to_all over the mesh axis (ICI within a slice,
-          DCN across slices — same collective API)
+        → ONE jax.lax.all_to_all over the mesh axis (NVLink between
+          the cards of a host, the network across hosts — same API)
         → receive-side compaction re-densifies rows.
 
 Everything here runs INSIDE shard_map (shard-local view). Static shapes:

@@ -5,7 +5,7 @@
 PUSH_RANGE/POP_RANGE macros with per-operator colors (src/nvtx_utils.h:
 17-66) wrapped around join/groupby/binaryops/hash-partition/CSV.
 
-TPU equivalent: jax.profiler.TraceAnnotation ranges (visible in
+Equivalent here: jax.profiler.TraceAnnotation ranges (visible in
 xprof/perfetto captures) with the same operator range names the reference
 uses, plus jax.named_scope so the ranges also appear in HLO op names.
 Colors become labels (the profiler UI colors by name).

@@ -1,9 +1,9 @@
 // Native CSV scanner/parser for libgdf_tpu.
 //
-// TPU-native counterpart of the reference's device-side CSV pipeline
+// Host counterpart of the reference's device-side CSV pipeline
 // (libgdf/src/io/csv/csv-reader.cu: countRecords / storeRecordStart /
-// convertCsvToGdf kernels + type_conversion.cuh field converters). On TPU
-// the byte scan belongs on the host (the data crosses host DMA anyway),
+// convertCsvToGdf kernels + type_conversion.cuh field converters). Here
+// the byte scan belongs on the host (the data crosses to the device anyway),
 // so this is a multithreaded C++ implementation: mmap the file, scan
 // record offsets in parallel, then convert each numeric column straight
 // into caller-provided typed buffers with a validity byte per row

@@ -1,12 +1,12 @@
 """Flat gdf_* ABI-surface tests.
 
 Parity sweep: every function declared in the reference's public headers
-(include/gdf/cffi/functions.h + io_functions.h) must exist in
-libgdf_tpu.compat.gdf (or its io/memory siblings). Functional spot checks
+(include/gdf/cffi/functions.h + io_functions.h), frozen in
+tests/data/gdf_abi_names.txt, must exist in libgdf_tpu.compat.gdf (or its
+io/memory siblings). Functional spot checks
 mirror the reference's python suite patterns (test_unaryops/test_binaryops/
 test_sorting etc.)."""
 import os
-import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,24 +15,14 @@ import pytest
 from libgdf_tpu import Column, GDFError, ops
 from libgdf_tpu.compat import gdf
 
-REF = "/root/reference/libgdf/include/gdf/cffi"
+ABI_NAMES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "data", "gdf_abi_names.txt")
 
 
 def _declared_functions():
-    names = set()
-    decl = re.compile(r"^[A-Za-z_][A-Za-z0-9_* ]*?\b(g[dp][fu]_\w+)\s*\(",
-                      re.M)
-    for header in ("functions.h", "io_functions.h"):
-        path = os.path.join(REF, header)
-        if not os.path.exists(path):
-            continue
-        text = open(path).read()
-        # strip comments
-        text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
-        text = re.sub(r"//.*", "", text)
-        for m in decl.finditer(text):
-            names.add(m.group(1))
-    return names
+    with open(ABI_NAMES) as f:
+        return {line.strip() for line in f
+                if line.strip() and not line.startswith("#")}
 
 
 # surfaces that live in sibling modules, not compat.gdf

@@ -150,8 +150,8 @@ def test_identity_hash(rng):
 def test_f64_ieee_bits_exact(rng):
     """core/bits.py arithmetic IEEE-754 decomposition is bit-exact with a
     numpy view(uint64), across normals, denormals, zeros, infinities, and
-    exponent boundaries (the TPU backend cannot lower 64-bit bitcasts, so
-    row hashing/sort encoding relies on this path)."""
+    exponent boundaries (row hashing and sort encoding rely on this
+    path, which uses no 64-bit bitcast)."""
     from libgdf_tpu.core.bits import f64_ieee_bits
 
     special = np.array([
@@ -179,7 +179,7 @@ def test_f64_ieee_bits_exact(rng):
 
 
 def test_murmur3_64bit_dtypes(rng):
-    """64-bit column hashing (the TPU-safe arithmetic bits path) matches
+    """64-bit column hashing (the arithmetic bits path) matches
     the reference algorithm byte-for-byte via the pure-python oracle."""
     for arr in [rng.integers(-2**62, 2**62, 64).astype(np.int64),
                 (rng.standard_normal(64) * 1e6).astype(np.float64)]:

@@ -235,7 +235,7 @@ def test_join_empty_left_side():
 
 def test_join_capacity_overflow_raises_eagerly(rng):
     """Eager joins raise when the exact output exceeds out_capacity —
-    never silent truncation (VERDICT r1 weak #3)."""
+    never silent truncation."""
     from libgdf_tpu.core.errors import GDFError
     lk = np.zeros(50, np.int32)
     rk = np.zeros(50, np.int32)   # 2500 output rows

@@ -1,7 +1,7 @@
 """Real multi-process execution: 2 jax.distributed processes x 4 CPU
 devices, one mesh spanning both, dist_groupby validated per-process
 (tests/mp_worker.py). This is the multi-host path (init_distributed →
-global mesh → collectives over processes) that a TPU pod run takes —
+global mesh → collectives over processes) that a multi-host run takes —
 SURVEY.md §4 prescribes exactly this CPU simulation."""
 import os
 import socket
